@@ -63,13 +63,8 @@ def parse_arguments(argv):
 
 
 def main(argv=None):
-    import os
-    platforms = os.environ.get("JAX_PLATFORMS")
-    if platforms:
-        # Some plugin environments override the env var; config.update is
-        # authoritative and must run before backend initialization.
-        import jax
-        jax.config.update("jax_platforms", platforms)
+    from .utils.jax_cache import enable_compile_cache
+    enable_compile_cache()
     argv = argv if argv is not None else sys.argv
     from .utils.timing import clock_start, clock_stop
     clk = clock_start("main", src=__file__)

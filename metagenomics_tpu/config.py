@@ -70,7 +70,7 @@ class AssemblerConfig:
     # reference run.  See LICENSES.md for why this mode exists.
     clean_flow: bool = False
     use_native_build: bool = True      # C++ construction engine when available
-    overlap_engine: str = "auto"       # auto | native | device | sharded | host
+    overlap_engine: str = "auto"       # see assembler.select_engine
     mesh: object = None                # jax.sharding.Mesh for the sharded
                                        # engine (default: auto from devices)
 

@@ -1,6 +1,6 @@
 """Mate-pair linkage graph ("graph of edges").
 
-TPU-framework equivalent of the reference's work-in-progress MatePairGraph
+This framework's equivalent of the reference's work-in-progress MatePairGraph
 (MetaGenomics/MatePairGraph.{h,cpp}) — a second-order graph whose nodes are
 the overlap graph's composite edges and whose links are mate pairs spanning
 two edges.  The reference version is excluded from its own build and calls

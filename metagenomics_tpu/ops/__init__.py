@@ -1,4 +1,4 @@
-"""Device-side (JAX/XLA/Pallas) bulk kernels.
+"""Device-side (JAX/XLA) bulk kernels.
 
 All per-base, per-read and per-candidate work is expressed over fixed-shape
 padded arrays of 2-bit base codes so XLA can fuse and tile it; variable-length

@@ -102,7 +102,7 @@ def qc_mask(codes, lengths, min_overlap: int):
     A read is good iff length > min_overlap, all chars in {A,C,G,T}, and no
     single base accounts for >= trunc(len * 0.8) positions.  The threshold is
     computed host-side in float64 to replicate the C++ double->integer
-    truncation exactly (TPUs have no native f64).
+    truncation exactly (JAX computes in float32 unless x64 is enabled).
     """
     thresholds = np.trunc(np.asarray(lengths, dtype=np.float64) * 0.8).astype(np.int64)
     return _qc_kernel(jnp.asarray(codes), jnp.asarray(lengths),

@@ -5,7 +5,7 @@ whose shapes are static per chunk, so the bytes each device moves are
 known at trace time.  The ledger records, per pipeline phase, the payload
 bytes of each collective per kernel invocation (captured once, when the
 kernel traces) and the number of invocations; `report()` folds both into
-total logical payload and a modeled ICI wire cost:
+total logical payload and per-device wire bytes:
 
     all_gather over axis size A : each device receives (A-1)/A of the
                                   gathered buffer  -> wire = out*(A-1)/A
@@ -13,11 +13,10 @@ total logical payload and a modeled ICI wire cost:
     ppermute                    : the whole buffer crosses one link
     psum (ring allreduce)       : 2*(A-1)/A of the buffer
 
-The report is measurement-independent (no timers): it lets multi-host ICI
-behaviour be projected from single-host runs (SCALING.json)."""
+The report holds counters only (no timers): collective time is read from
+a device trace, not modelled here."""
 
 import contextlib
-import math
 from collections import defaultdict
 
 
@@ -86,8 +85,8 @@ class CollectiveLedger:
         "psum": lambda b, a: 2 * b * (a - 1) / a,
     }
 
-    def report(self, ici_bytes_per_s=4.5e10):
-        """Per-phase collective totals + a modeled ICI transfer time."""
+    def report(self):
+        """Per-phase collective payload and wire-byte totals."""
         phases = {}
         for (phase, op, axis, asize), total in sorted(self.totals.items()):
             calls = self.calls.get(phase, 1)
@@ -102,18 +101,12 @@ class CollectiveLedger:
                 "payload_bytes": total, "wire_bytes": int(wire)})
             rec["payload_bytes"] += total
             rec["wire_bytes"] += int(wire)
-        total_wire = sum(p["wire_bytes"] for p in phases.values())
         return {
             "phases": phases,
             "total_payload_bytes": sum(p["payload_bytes"]
                                        for p in phases.values()),
-            "total_wire_bytes": total_wire,
-            "model": {
-                "ici_bytes_per_s": ici_bytes_per_s,
-                "projected_ici_seconds": total_wire / ici_bytes_per_s,
-                "assumptions": "ring all_gather/psum; per-device wire "
-                               "bytes; no overlap with compute",
-            },
+            "total_wire_bytes": sum(p["wire_bytes"]
+                                    for p in phases.values()),
         }
 
 

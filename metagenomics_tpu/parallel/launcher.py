@@ -3,21 +3,22 @@
 The reference has no distributed runtime at all — copyToServers.sh:1-3 just
 scp's the binary to lab hosts for separate manual runs (SURVEY.md §2.3).
 Here multi-host is first-class: one Python process per host, joined into a
-single JAX runtime so every device on the pod slice participates in one
-mesh and all collectives ride ICI/DCN.
+single JAX runtime so every device of every host participates in one mesh
+and the collectives run across hosts.
 
 Usage (one of):
-  * On Cloud TPU / GKE with standard TPU env metadata: just call
-    ``initialize_distributed()`` — jax.distributed.initialize() autodetects
-    the coordinator and process ranks.
-  * Manual clusters: set MGTPU_COORDINATOR (host:port of process 0),
+  * On clusters whose scheduler JAX can read (e.g. SLURM, or GPU hosts
+    started by a launcher that sets JAX's own coordinator variables): set
+    MGTPU_AUTODETECT=1 and ``initialize_distributed()`` lets
+    jax.distributed.initialize() autodetect the coordinator and ranks.
+  * Anywhere else: set MGTPU_COORDINATOR (host:port of process 0),
     MGTPU_NUM_PROCESSES, MGTPU_PROCESS_ID before launching each process.
 
 After initialization, ``parallel.make_mesh`` builds the ("dp", "ix") mesh
 over jax.devices() (which now spans all hosts) and the sharded overlap
 pipeline (parallel/sharded.py) runs unchanged: shard_map gives each process
 its local shard of the global arrays, and cross-host candidate merging uses
-the same psum/all_gather collectives as the single-host multi-chip path.
+the same psum/all_gather collectives as the single-host multi-device path.
 """
 
 import os
@@ -40,7 +41,7 @@ def initialize_distributed(coordinator=None, num_processes=None,
         else os.environ.get("MGTPU_PROCESS_ID")
 
     if coordinator is None and num_processes is None:
-        # Cloud TPU environments can autodetect ranks, but a bare
+        # cluster schedulers can supply the ranks, but a bare
         # initialize() BLOCKS waiting for peers in misconfigured setups —
         # so autodetection is opt-in; the default is single-process.
         if os.environ.get("MGTPU_AUTODETECT") != "1":

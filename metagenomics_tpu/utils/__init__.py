@@ -1,6 +1,6 @@
 """Observability utilities: per-phase timing, memory, profiler traces.
 
-TPU-native replacement for the reference's CLOCKSTART/CLOCKSTOP macro pair
+Replacement for the reference's CLOCKSTART/CLOCKSTOP macro pair
 and checkMemoryUsage() (MetaGenomics/Common.h:52-76), which print each major
 function's wall time and VmData delta.  The same stdout format is kept so
 per-phase statistics diff directly against reference logs, plus an optional
@@ -9,5 +9,7 @@ timelines.
 """
 
 from .timing import check_memory_usage, phase_clock, PhaseTimer
+from .jax_cache import compile_cache_dir, enable_compile_cache
 
-__all__ = ["check_memory_usage", "phase_clock", "PhaseTimer"]
+__all__ = ["check_memory_usage", "phase_clock", "PhaseTimer",
+           "compile_cache_dir", "enable_compile_cache"]

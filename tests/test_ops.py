@@ -147,17 +147,45 @@ def test_numpy_twins_match_device_kernels():
             packing.qc_mask_np(codes, lens, mo))
 
 
-def test_pallas_window_hashes_match_jnp_scan():
-    """The Pallas tile kernel must be bit-identical to the jnp rolling-hash
-    (interpret mode on CPU; the same assertion runs compiled on real TPU)."""
-    from metagenomics_tpu.ops.pallas_hash import window_hashes_pallas
-    from metagenomics_tpu.ops.device_overlap import window_hashes_u32
-    rng = np.random.default_rng(5)
-    for n, lmax, l in ((3, 50, 11), (300, 100, 39), (64, 130, 64)):
-        codes = rng.integers(0, 5, (n, lmax)).astype(np.uint8)
-        a = np.asarray(window_hashes_u32(codes, l))
-        b = np.asarray(window_hashes_pallas(codes, l, interpret=True))
-        np.testing.assert_array_equal(a, b)
+def _ragged_codes(rng, n, lmax):
+    """Random codes with per-row lengths in [88, lmax], padded with code 4
+    (PAD_CODE) past each row's end."""
+    lens = rng.integers(88, lmax + 1, n)
+    codes = rng.integers(0, 4, (n, lmax)).astype(np.uint8)
+    codes[np.arange(lmax)[None, :] >= lens[:, None]] = packing.PAD_CODE
+    return codes
+
+
+@pytest.mark.parametrize("n,lmax,l,ragged", [
+    (3, 50, 11, False), (300, 100, 39, False), (64, 130, 64, False),
+    (257, 150, 39, True)])
+def test_window_hashes_match_rolling_scan(n, lmax, l, ragged):
+    """The production window hashes (jnp convolution) must be bit-identical
+    to the rolling-scan reference, padded rows included."""
+    from metagenomics_tpu.ops.device_overlap import (window_hashes_scan,
+                                                     window_hashes_u32)
+    rng = np.random.default_rng(5 + n)
+    codes = (_ragged_codes(rng, n, lmax) if ragged
+             else rng.integers(0, 5, (n, lmax)).astype(np.uint8))
+    a = np.asarray(window_hashes_scan(codes, l))
+    b = np.asarray(window_hashes_u32(codes, l))
+    assert b.shape == (n, lmax - l + 1)
+    np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_window_hashes_on_gpu(gpu):
+    """Compiled for the card, the production and reference window-hash
+    forms agree bit for bit (chip_smoke.py repeats this at 2M reads)."""
+    import jax
+    from metagenomics_tpu.ops.device_overlap import (window_hashes_scan,
+                                                     window_hashes_u32)
+    codes = jax.device_put(_ragged_codes(np.random.default_rng(9), 4096,
+                                         150), gpu)
+    a = window_hashes_scan(codes, 39)
+    b = window_hashes_u32(codes, 39)
+    assert {d.platform for d in b.devices()} == {"gpu"}
+    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 def test_multichunk_stream_matches_single_chunk():

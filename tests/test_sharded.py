@@ -126,7 +126,6 @@ def test_collective_ledger_accounts_stream():
     assert {"probe", "emit"} <= set(rep["phases"])
     assert rep["total_payload_bytes"] > 0
     assert rep["total_wire_bytes"] > 0
-    assert rep["model"]["projected_ici_seconds"] > 0
     ops = {c["op"] for p in rep["phases"].values()
            for c in p["collectives"]}
     assert {"all_gather", "all_to_all", "ppermute", "psum"} <= ops

@@ -1,12 +1,14 @@
 """Fine-grained profile of the device overlap pipeline on the bench set.
 
 Measures, with explicit block_until_ready sync points:
-  * link health: H2D / D2H bandwidth at several sizes, dispatch latency
+  * host<->device copies: H2D / D2H bandwidth at several sizes, dispatch
+    latency
   * per-stage device times: upload, setup kernel, probe join, emit, fetch
   * stream composition: survivor total, canonical-duplicate structure
   * native replay time from the fetched stream
 
-Run:  python tools/profile_device.py            (TPU backend)
+Run:  python tools/profile_device.py     (on the GPU; generate the bench set
+      first with `python bench.py`)
 """
 import os
 import sys
@@ -20,10 +22,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-JAX_CACHE = os.path.expanduser("~/.cache/mgtpu_jax_cache")
-os.makedirs(JAX_CACHE, exist_ok=True)
-jax.config.update("jax_compilation_cache_dir", JAX_CACHE)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from metagenomics_tpu.utils import enable_compile_cache  # noqa: E402
 
 MIN_OVERLAP = 40
 DATA_FILE = os.path.join(REPO, "bench_data", "bench_se.fasta")
@@ -62,6 +61,7 @@ def bw_probe():
 
 
 def main():
+    enable_compile_cache()
     print("backend:", jax.default_backend(), jax.devices())
     print(json.dumps(bw_probe(), indent=1))
 
@@ -90,7 +90,6 @@ def main():
         n1 = ds.codes_fwd.shape[0]
         p.npos = lmax - p.hash_len + 1
         p.lengths = jnp.asarray(ds.lengths.astype(np.int32))
-        use_pallas = jax.default_backend() == "tpu"
         t_pack0 = time.time()
         pf_host = dov.pack_codes_host(ds.codes_fwd)
         t["host_pack"] = time.time() - t_pack0
@@ -101,7 +100,7 @@ def main():
         t["upload_MB"] = pf_host.nbytes / 1e6
         t_set0 = time.time()
         p.packed2, p.hf, p.sk, p.sid = dov._setup_kernel(
-            pf, p.lengths, p.hash_len, p.w, p.wp, lmax, use_pallas)
+            pf, p.lengths, p.hash_len, p.w, p.wp, lmax)
         p.sid.block_until_ready()
         t["setup_kernel"] = time.time() - t_set0
         m = int(p.sk.shape[0])
